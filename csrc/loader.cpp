@@ -1,4 +1,4 @@
-// Native text-format parser for tahoe-tpu.
+// Native text-format parser for tahoe_tpu.
 //
 // The reference's model/data loaders are C++ (BaseTahoeTest.h:267-352,
 // 354-402) and its model compilation is host-side C++ (Struct.h:1756-1986);

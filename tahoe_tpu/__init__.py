@@ -1,12 +1,13 @@
-"""tahoe-tpu: a TPU-native decision-tree-ensemble inference engine.
+"""tahoe_tpu: a decision-tree-ensemble inference engine in JAX, run on
+NVIDIA GPUs.
 
 A from-scratch framework with the capabilities of the Tahoe CUDA engine
 (see SURVEY.md): forest loading from its text model format, structure-aware
 model compilation (hot-child swapping, adaptive node encodings, similar-tree
 clustering, tree-/node-major layouts), a strategy space of memory placements
-realized as JAX/Pallas kernels, an analytical performance model with
-measured-bandwidth calibration, exact CPU-oracle parity checking, INT8
-node-table quantization, and multi-chip scaling via jax.sharding.
+realized as XLA programs and one Pallas kernel, an analytical performance
+model with measured calibration, exact CPU-oracle parity checking, INT8
+node-table quantization, and multi-device scaling via jax.sharding.
 """
 from tahoe_tpu.config import (
     ALL_STRATEGIES,
@@ -16,7 +17,6 @@ from tahoe_tpu.config import (
     Output,
     PredictConfig,
     Strategy,
-    TpuLimits,
 )
 from tahoe_tpu.forest.spec import ForestSpec, LeveledForest, PackedForest
 from tahoe_tpu.forest import io, synthetic
@@ -34,7 +34,6 @@ __all__ = [
     "PackedForest",
     "PredictConfig",
     "Strategy",
-    "TpuLimits",
     "io",
     "synthetic",
     "__version__",

@@ -157,12 +157,16 @@ def transform_rows_np(q: RankQuantizedForest, data: np.ndarray) -> np.ndarray:
 
 
 def transform_rows_device(q: RankQuantizedForest, data):
-    """Device-side rank transform: one fused compare-accumulate per feature.
+    """Device-side rank transform: a binary search per (row, feature).
 
-    rank_f(x) = sum_j (x >= U_f[j]) — exact, vectorized, no gathers; cost is
-    sum_f |U_f| compares per row, which is bounded by the forest's internal
-    node count. Padded to the max table size with +inf (contributes 0).
+    rank_f(x) = #{u in U_f : u <= x} = searchsorted(U_f, x, side="right"),
+    log2|U_f| steps per value instead of |U_f| compares. Tables are padded
+    to the largest size with +inf (never <= a finite x). The search orders
+    floats totally, so two IEEE cases are pinned to the compare semantics:
+    -0.0 becomes +0.0 on both sides, and a NaN that is not the missing
+    sentinel gets rank 0 (``NaN >= t`` is False for every threshold).
     """
+    import jax
     import jax.numpy as jnp
 
     data = jnp.asarray(data, jnp.float32)
@@ -175,10 +179,13 @@ def transform_rows_device(q: RankQuantizedForest, data):
     kmax = max(q.max_ranks, 1)
     padded = np.full((len(q.tables), kmax), np.inf, np.float32)
     for f, t in enumerate(q.tables):
-        padded[f, : len(t)] = t
-    u = jnp.asarray(padded)  # [F, K]
-    # ranks[r, f] = sum_j x[r, f] >= u[f, j]
-    ranks = (data[:, :, None] >= u[None, :, :]).sum(axis=2).astype(jnp.float32)
+        padded[f, : len(t)] = np.where(t == 0, np.float32(0), t)
+    x = jnp.where(data == 0, jnp.float32(0), data)
+    ranks = jax.vmap(
+        lambda u, col: jnp.searchsorted(u, col, side="right"),
+        in_axes=(0, 1), out_axes=1,
+    )(jnp.asarray(padded), x)
+    ranks = jnp.where(jnp.isnan(x), 0, ranks).astype(jnp.float32)
     return jnp.where(miss, jnp.float32(np.nan), ranks)
 
 

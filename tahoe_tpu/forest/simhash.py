@@ -9,9 +9,9 @@ capability: tokens are the per-node (feature id, quantized threshold) pairs of
 each tree's internal nodes, hashed with a 64-bit mix, combined by the classic
 simhash bit-voting scheme (simhash.h:42-72's structure, real inputs).
 
-Adjacent-lane similarity matters on TPU for the same reason it did on GPU
-warps: vectorized descent over the tree axis touches similar node columns when
-neighboring trees split on similar features.
+Adjacent-tree similarity matters for the same reason it did on the
+reference's GPU warps: vectorized descent over the tree axis touches similar
+node columns when neighboring trees split on similar features.
 """
 from __future__ import annotations
 

@@ -6,10 +6,11 @@ nodes per tree, BaseTahoeTest.h:282-331). Dense level-synchronous engines pay
 ``2^depth`` selects per tree, so one deep tree makes every shallow tree cost
 the deep price. This engine partitions trees by per-tree REACHABLE depth
 (compiler.reachable_depths), truncates each bucket to its own depth
-(compiler.truncate_depth — exact), and folds every bucket inside ONE jit
-(fold_kernel.fold_margins is pure-functional), summing margins before a
-single output transform. Work drops from ``T * 2^max_depth`` to
-``Σ_buckets T_b * 2^depth_b``.
+(compiler.truncate_depth — exact), and runs every bucket inside ONE jit
+(fold_kernel.fold_margins and rank_engine.rank_margins are pure-functional),
+summing margins before a single output transform. Work drops from
+``T * max_depth`` descent steps (``T * 2^max_depth`` selects for the rank
+form) to the per-bucket sums.
 
 No reference counterpart exists (the reference's trees all run the global
 depth); the closest ancestor is its similar-tree clustering (Struct.h:
@@ -17,20 +18,21 @@ depth); the closest ancestor is its similar-tree clustering (Struct.h:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tahoe_tpu.config import TpuLimits
 from tahoe_tpu.forest.compiler import (
+    compact_features,
     levelize,
     reachable_depths,
     truncate_depth,
 )
 from tahoe_tpu.forest.spec import ForestSpec
-from tahoe_tpu.ops.fold_kernel import LANE, FoldKernelEngine, fold_margins
+from tahoe_tpu.ops.fold_kernel import FoldKernelEngine, fold_margins
 from tahoe_tpu.ops.transform import apply_output_transform
 
 
@@ -78,8 +80,6 @@ def plan_buckets(depths: np.ndarray, max_buckets: int = 4,
 
 
 def subset_trees(spec: ForestSpec, idx: np.ndarray) -> ForestSpec:
-    import dataclasses
-
     return dataclasses.replace(
         spec,
         values=spec.values[idx],
@@ -91,97 +91,22 @@ def subset_trees(spec: ForestSpec, idx: np.ndarray) -> ForestSpec:
     )
 
 
-class DepthBucketedFoldEngine:
-    """Per-depth-bucket fused fold, one jit, margins summed across buckets."""
+class _Bucketed:
+    """Shared predict of the bucketed engines: per-bucket margins from
+    ``_bucket_margins`` plus the stump buckets' constant, one transform."""
 
-    def __init__(self, spec: ForestSpec, *, row_tile: int = 128,
-                 tree_tile: int = 64, max_buckets: int = 4,
-                 interpret: bool = False, limits: TpuLimits = TpuLimits()):
-        if spec.num_cols > LANE:
-            raise NotImplementedError(
-                f"fold engines support <= {LANE} features"
-            )
-        depths = reachable_depths(spec)
-        self.num_trees = spec.num_trees
-        self.num_cols = spec.num_cols
-        self.output = spec.output
-        self.global_bias = spec.global_bias
-        self.threshold = spec.threshold
-        self.missing = spec.missing
-        self.row_tile = row_tile
-        # uniform ge decision across buckets (shared canonicalized rows)
-        ge = 2 * spec.num_cols <= LANE
-
-        self.buckets = plan_buckets(depths, max_buckets=max_buckets)
-        self.sub: List[FoldKernelEngine] = []
-        stumps_margin = 0.0  # depth-0 buckets fold to a per-tree constant
-        for idx in self.buckets:
-            d_b = int(depths[idx].max(initial=0))
-            sub = truncate_depth(subset_trees(spec, idx), d_b)
-            if d_b == 0:
-                stumps_margin += float(sub.values[:, 0].sum())
-                continue
-            eng = FoldKernelEngine(
-                levelize(sub), row_tile=row_tile,
-                tree_tile=min(tree_tile, self._tt_for_depth(d_b)),
-                ge_mode=ge, interpret=interpret, limits=limits,
-            )
-            self.sub.append(eng)
-        self.stumps_margin = stumps_margin
-        self.depths = [e.depth for e in self.sub]
-        self.tables = tuple(e.tables for e in self.sub)
-        self._predict = jax.jit(self._predict_impl)
-        self._predict_k = jax.jit(self._chain_impl, static_argnames=("k",))
-
-    @staticmethod
-    def _tt_for_depth(depth: int) -> int:
-        # deeper buckets take smaller tree chunks (VMEM frontier ~ 2^d * tt)
-        if depth <= 8:
-            return 128
-        if depth <= 10:
-            return 32
-        return 8
-
-    # ------------------------------------------------------------------
     def _predict_impl(self, tables, data):
         rows = data.shape[0]
-        if not self.sub:  # forest of stumps only
-            return apply_output_transform(
-                jnp.full((rows,), np.float32(self.stumps_margin)),
-                self.num_trees, self.output, self.global_bias,
-                self.threshold, jnp,
-            )
-        # reuse the first sub-engine's canonicalization (all buckets share
-        # missing semantics, feature count and ge mode)
-        x = self.sub[0]._canonicalize(data)
-        pad = (-rows) % self.row_tile
-        if pad:
-            x = jnp.concatenate([x, jnp.zeros((pad, LANE), jnp.float32)],
-                                axis=0)
-        margins = None
-        for eng, tab in zip(self.sub, tables):
-            m = fold_margins(eng.cfg, tab, x)
-            margins = m if margins is None else margins + m
-        margins = margins[:rows] + jnp.float32(self.stumps_margin)
+        margins = jnp.full((rows,), np.float32(self.stumps_margin))
+        if self.sub:
+            margins = margins + self._bucket_margins(tables, data)
         return apply_output_transform(
             margins, self.num_trees, self.output, self.global_bias,
             self.threshold, jnp,
         )
 
-    def _chain_impl(self, tables, data, k):
-        def body(_, acc):
-            return self._predict_impl(tables, data + acc[0] * 0.0)
-
-        return jax.lax.fori_loop(
-            0, k, body, jnp.zeros(data.shape[0], jnp.float32)
-        )
-
-    # ------------------------------------------------------------------
     def predict(self, data) -> jax.Array:
         return self._predict(self.tables, jnp.asarray(data))
-
-    def predict_k(self, data, k: int) -> jax.Array:
-        return self._predict_k(self.tables, jnp.asarray(data), k=k)
 
     @property
     def bucket_plan(self) -> List[Tuple[int, int]]:
@@ -189,119 +114,85 @@ class DepthBucketedFoldEngine:
         return [(e.num_trees, e.depth) for e in self.sub]
 
 
-class DepthBucketedRankEngine:
-    """Depth buckets over the int8 rank-MXU kernel: ONE quantization + ONE
-    per-batch plane transform shared by every bucket; each bucket's matrices
-    are built at its own truncated depth (deep buckets auto-stream subtrees
-    via the rank kernel's split mode). The combination of the framework's two
-    native strategies (#6 x #7)."""
+def _split_buckets(spec: ForestSpec, max_buckets: int):
+    """Yield (bucket depth, truncated bucket spec); depth-0 buckets are
+    stumps whose margin is a per-tree constant."""
+    depths = reachable_depths(spec)
+    for idx in plan_buckets(depths, max_buckets=max_buckets):
+        d_b = int(depths[idx].max(initial=0))
+        yield d_b, truncate_depth(subset_trees(spec, idx), d_b)
+
+
+class DepthBucketedFoldEngine(_Bucketed):
+    """Per-depth-bucket fold kernel, one jit, margins summed across buckets.
+    Rows are canonicalized once: every bucket reads the same live columns."""
 
     def __init__(self, spec: ForestSpec, *, row_tile: int = 128,
-                 tree_tile: int = 8, max_buckets: int = 4,
-                 interpret: bool = False, limits: TpuLimits = TpuLimits()):
-        from tahoe_tpu.forest.quantize import band_split, quantize
-        from tahoe_tpu.ops.rank_kernel import RankFoldEngine
-
-        d_eff = int(reachable_depths(spec).max(initial=0))
-        spec_t = truncate_depth(spec, d_eff)
+                 tree_tile: int = 128, max_buckets: int = 4):
         self.num_trees = spec.num_trees
-        self.num_cols = spec.num_cols
         self.output = spec.output
         self.global_bias = spec.global_bias
         self.threshold = spec.threshold
-        self.row_tile = row_tile
-
-        q = quantize(spec_t)
-        q, vf_base = band_split(q)
-        depths = reachable_depths(spec_t)
-        self.buckets = plan_buckets(depths, max_buckets=max_buckets)
-        self.sub: List[RankFoldEngine] = []
-        stumps_margin = 0.0
-        for idx in self.buckets:
-            d_b = int(depths[idx].max(initial=0))
-            sub_q = truncate_depth(subset_trees(q.spec, idx), d_b)
+        spec, col_index = compact_features(spec)
+        self.sub: List[FoldKernelEngine] = []
+        self.stumps_margin = 0.0
+        for d_b, sub in _split_buckets(spec, max_buckets):
             if d_b == 0:
-                stumps_margin += float(sub_q.values[:, 0].sum())
+                self.stumps_margin += float(sub.values[:, 0].sum())
                 continue
-            import dataclasses as _dc
-
-            bucket_q = _dc.replace(q, spec=sub_q)
-            eng = RankFoldEngine(
-                sub_q, row_tile=row_tile, tree_tile=tree_tile,
-                interpret=interpret, limits=limits,
-                prequantized=(bucket_q, vf_base, spec.missing),
-            )
-            self.sub.append(eng)
-        self.stumps_margin = stumps_margin
-        if not self.sub:
-            raise ValueError("rank bucketing needs at least one non-stump bucket")
-        # the transform tables are identical across buckets (shared
-        # quantization) — keep one copy
-        self.rank_tables = self.sub[0].rank_tables
+            self.sub.append(FoldKernelEngine(
+                levelize(sub), row_tile=row_tile, tree_tile=tree_tile,
+                col_index=col_index, compact=False,
+            ))
         self.tables = tuple(e.tables for e in self.sub)
         self._predict = jax.jit(self._predict_impl)
-        self._predict_k = jax.jit(self._chain_impl, static_argnames=("k",))
 
-    # ------------------------------------------------------------------
-    def _predict_impl(self, tables, rank_tables, data):
-        from tahoe_tpu.ops.rank_kernel import rank_fold_margins
-
-        rows = data.shape[0]
-        planes = self.sub[0]._transform(rank_tables, data)  # row_tile-padded
-        margins = None
-        for eng, tab in zip(self.sub, tables):
-            m = rank_fold_margins(eng.cfg, tab, planes)
-            margins = m if margins is None else margins + m
-        margins = margins[:rows] + jnp.float32(self.stumps_margin)
-        return apply_output_transform(
-            margins, self.num_trees, self.output, self.global_bias,
-            self.threshold, jnp,
-        )
-
-    def _chain_impl(self, tables, rank_tables, data, k):
-        def body(_, acc):
-            return self._predict_impl(tables, rank_tables, data + acc[0] * 0.0)
-
-        return jax.lax.fori_loop(
-            0, k, body, jnp.zeros(data.shape[0], jnp.float32)
-        )
-
-    # ------------------------------------------------------------------
-    def predict(self, data) -> jax.Array:
-        return self._predict(self.tables, self.rank_tables, jnp.asarray(data))
-
-    def predict_k(self, data, k: int) -> jax.Array:
-        return self._predict_k(self.tables, self.rank_tables,
-                               jnp.asarray(data), k=k)
-
-    @property
-    def bucket_plan(self) -> List[Tuple[int, int]]:
-        return [(e.num_trees, e.depth) for e in self.sub]
+    def _bucket_margins(self, tables, data):
+        x_t = self.sub[0]._canonicalize(data)
+        margins = sum(fold_margins(e.cfg, tab, x_t)
+                      for e, tab in zip(self.sub, tables))
+        return margins[: data.shape[0]]
 
 
-def make_depth_bucketed_engine(spec: ForestSpec, *, row_tile: int = 128,
-                               tree_tile: int = 64, interpret: bool = False,
-                               limits: TpuLimits = TpuLimits()):
-    """DEPTH_BUCKETED engine chooser: int8 rank sub-engines when the rank
-    form is feasible and predicted faster (one or two plane groups — the
-    calibrated per-node cost crosses over at G=3, perf_model/model.py),
-    else f32 fold sub-engines."""
-    from tahoe_tpu.engine.feasibility import rank_virtual_cols
-    from tahoe_tpu.forest.compiler import RANK_MAX_COLS, rank_groups
+class DepthBucketedRankEngine(_Bucketed):
+    """Depth buckets over the int8 rank path: ONE quantization + ONE plane
+    transform shared by every bucket; each bucket's matrices are built at
+    its own truncated depth."""
 
-    use_rank = False
-    if spec.num_cols <= RANK_MAX_COLS:
-        vcols = rank_virtual_cols(spec)
-        use_rank = vcols <= RANK_MAX_COLS and rank_groups(vcols) <= 2
-    if use_rank:
-        try:
-            return DepthBucketedRankEngine(
-                spec, row_tile=row_tile, tree_tile=min(tree_tile, 8),
-                interpret=interpret, limits=limits,
-            )
-        except (ValueError, NotImplementedError):
-            pass  # fall back to the fold form
-    return DepthBucketedFoldEngine(
-        spec, row_tile=row_tile, tree_tile=tree_tile,
-        interpret=interpret, limits=limits,
-    )
+    def __init__(self, spec: ForestSpec, *, max_buckets: int = 4):
+        from tahoe_tpu.forest.quantize import band_split, quantize
+        from tahoe_tpu.ops.rank_engine import RankEngine
+
+        spec = truncate_depth(spec, int(reachable_depths(spec).max(initial=0)))
+        self.num_trees = spec.num_trees
+        self.output = spec.output
+        self.global_bias = spec.global_bias
+        self.threshold = spec.threshold
+        q, vf_base = band_split(quantize(spec))
+        self.sub: List[RankEngine] = []
+        self.stumps_margin = 0.0
+        for d_b, sub_q in _split_buckets(q.spec, max_buckets):
+            if d_b == 0:
+                self.stumps_margin += float(sub_q.values[:, 0].sum())
+                continue
+            self.sub.append(RankEngine(
+                sub_q, prequantized=(dataclasses.replace(q, spec=sub_q),
+                                     vf_base)))
+        self.tables = tuple(e.tables for e in self.sub)
+        self._predict = jax.jit(self._predict_impl)
+
+    def _bucket_margins(self, tables, data):
+        planes = self.sub[0].planes(data)  # one shared transform
+        return sum(e.margins_from_planes(tab, planes)
+                   for e, tab in zip(self.sub, tables))
+
+
+def make_depth_bucketed_engine(spec: ForestSpec, *, use_kernel: bool,
+                               row_tile: int = 128, tree_tile: int = 128):
+    """DEPTH_BUCKETED engine: fold-kernel buckets where the kernel can run
+    (measured far faster than the rank path on the H100, PERF.md), int8
+    rank buckets otherwise."""
+    if use_kernel:
+        return DepthBucketedFoldEngine(spec, row_tile=row_tile,
+                                       tree_tile=tree_tile)
+    return DepthBucketedRankEngine(spec)

@@ -1,16 +1,14 @@
-"""Predicted multi-chip / multi-host scaling efficiency from psum bytes.
+"""Predicted multi-device / multi-host scaling efficiency from psum bytes.
 
 BASELINE config 5 asks for >=85% throughput scaling efficiency to >=2 hosts.
-The hardware here has one chip, so the round-2 deliverable is the honest
-analytical bound with the math shown (VERDICT r1 item 10), validated
-end-to-end functionally by ``scripts/run_multiproc.py`` (2 processes x 4
-virtual devices, real cross-process psum).
+This is the analytical bound with the math shown; ``scripts/run_scaling.py``
+measures the real thing on the devices that exist.
 
 The model (weak scaling, ``rows_per_device`` constant):
 
 - Batch sharding ("data" axis) is communication-free: every device runs the
-  identical single-chip program on its own rows; the only added cost is the
-  per-call dispatch. eff = T_comp / (T_comp + dispatch_delta) ~= 1.
+  identical single-device program on its own rows; the only added cost is
+  the per-call dispatch.
 - Tree sharding ("model" axis over n devices) keeps all rows on every device
   but 1/n of the trees; after traversal ONE f32 psum of per-row margins runs
   over the axis (sharded.py — the cross-device DeviceSegmentedReduce,
@@ -18,19 +16,13 @@ The model (weak scaling, ``rows_per_device`` constant):
 
       T_psum = 2 * (n-1)/n * B / bw + (n-1) * hop_latency
 
-  where ``bw`` is the per-link collective bandwidth (ICI within a slice, DCN
-  across hosts — the slowest hop bounds the ring).
+  where ``bw`` is the per-link collective bandwidth of the slowest hop of
+  the ring. Per-device time T(n) = T_comp(1)/n_model + T_psum, and
+  weak-scaling efficiency vs one device running the whole forest on the
+  same rows is eff = T_comp(1) / (n_model * T(n)).
 
-      eff = T_comp(1) / (T_comp(n_model)*... )  — for tree sharding
-      T_comp scales as 1/n_model (trees split); per-device time
-      T(n) = T_comp(1)/n_model + T_psum, and weak-scaling efficiency vs one
-      device running the whole forest on the same rows is
-      eff = T_comp(1) / (n * T(n)).
-
-Defaults are deliberately conservative: v5e ICI ~45 GB/s effective per
-direction per link (public spec 1.6 Tbps aggregate over 4 links ~= 50 GB/s
-per direction each), DCN ~12.5 GB/s (100 Gbps NIC), 5 us hop latency on DCN,
-1 us on ICI.
+The link's bandwidth and hop latency are arguments: the caller states what
+it measured (or the interconnect it plans for); the model assumes none.
 """
 from __future__ import annotations
 
@@ -41,18 +33,13 @@ from tahoe_tpu.forest.spec import ForestSpec
 from tahoe_tpu.perf_model.calibrate import Calibration
 from tahoe_tpu.perf_model.model import choose_strategy
 
-ICI_GBPS = 45.0
-DCN_GBPS = 12.5
-ICI_HOP_LATENCY_S = 1e-6
-DCN_HOP_LATENCY_S = 5e-6
-
 
 @dataclasses.dataclass(frozen=True)
 class ScalingPrediction:
     n_devices: int
     n_data: int
     n_model: int
-    cross_host: bool
+    link_gbps: float
     compute_s: float        # single-device full-forest time on rows_per_device
     psum_bytes: int         # per-device all-reduce payload
     psum_s: float
@@ -64,20 +51,17 @@ class ScalingPrediction:
             f"mesh=({self.n_data} data x {self.n_model} model), "
             f"T_comp(1)={self.compute_s*1e6:.1f} us, "
             f"psum {self.psum_bytes} B -> {self.psum_s*1e6:.2f} us "
-            f"({'DCN' if self.cross_host else 'ICI'}), "
+            f"({self.link_gbps:g} GB/s link), "
             f"eff={self.efficiency:.1%}"
         )
 
 
 def predict_scaling(forest: ForestSpec, rows_per_device: int,
-                    n_data: int = 1, n_model: int = 1,
-                    cross_host: bool = False,
-                    cal: Optional[Calibration] = None,
-                    ici_gbps: float = ICI_GBPS,
-                    dcn_gbps: float = DCN_GBPS) -> ScalingPrediction:
-    """Weak-scaling efficiency for a (data, model) mesh.
-
-    ``cross_host`` marks the model axis as spanning hosts (psum rides DCN).
+                    n_data: int = 1, n_model: int = 1, *,
+                    link_gbps: float, hop_latency_s: float = 0.0,
+                    cal: Optional[Calibration] = None) -> ScalingPrediction:
+    """Weak-scaling efficiency for a (data, model) mesh whose model-axis
+    psum rides a link of ``link_gbps`` GB/s and ``hop_latency_s`` per hop.
     The data axis never communicates, so only dispatch skew charges it.
     """
     cal = cal or Calibration.default()
@@ -90,11 +74,9 @@ def predict_scaling(forest: ForestSpec, rows_per_device: int,
     psum_bytes = 0
     psum_s = 0.0
     if n_model > 1:
-        bw = (dcn_gbps if cross_host else ici_gbps) * 1e9
-        lat = DCN_HOP_LATENCY_S if cross_host else ICI_HOP_LATENCY_S
         psum_bytes = 4 * rows_per_device
-        psum_s = 2.0 * (n_model - 1) / n_model * psum_bytes / bw \
-            + (n_model - 1) * lat
+        psum_s = 2.0 * (n_model - 1) / n_model * psum_bytes / (
+            link_gbps * 1e9) + (n_model - 1) * hop_latency_s
     # dispatch skew: multi-host launch adds ~one extra dispatch of slack
     dispatch_s = cal.dispatch_us / 1e6 if n > 1 else 0.0
 
@@ -109,7 +91,7 @@ def predict_scaling(forest: ForestSpec, rows_per_device: int,
     # -> eff = t1 / (n_model * t_n); the data axis cancels (zero comm).
     eff = min(1.0, t1 / (n_model * t_n))
     return ScalingPrediction(
-        n_devices=n, n_data=n_data, n_model=n_model, cross_host=cross_host,
+        n_devices=n, n_data=n_data, n_model=n_model, link_gbps=link_gbps,
         compute_s=t1, psum_bytes=psum_bytes, psum_s=psum_s,
         dispatch_s=dispatch_s, efficiency=eff,
     )

@@ -5,9 +5,9 @@ oracle compare (compare_GPU, cuda_base.h:98-111). Equivalents here:
 
 - :func:`check_engine` — the oracle-parity gate as a library call, with a
   per-row report instead of a printf;
-- interpreter mode — every Pallas engine takes ``interpret=True`` to run the
-  kernels un-compiled for debugging (the Pallas analog of nvcc -G builds,
-  Makefile:8);
+- interpreter mode — the Pallas fold kernel takes ``interpret=True`` (or
+  ``TAHOE_PALLAS_INTERPRET=1``) to run un-compiled for debugging (the
+  Pallas analog of nvcc -G builds, Makefile:8);
 - :func:`nan_guard` — jax debug_nans scope for hunting NaN sources.
 """
 from __future__ import annotations

@@ -61,7 +61,7 @@ def test_bucketed_matches_oracle(missing_prob):
     f = _mixed_depth_forest()
     data = synthetic.generate_data(70, f.num_cols, missing_prob=missing_prob,
                                    seed=7)
-    eng = DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16, interpret=True)
+    eng = DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16)
     assert len(eng.sub) >= 2  # genuinely bucketed
     got = np.asarray(eng.predict(data))
     np.testing.assert_allclose(got, oracle.predict(f, data), atol=1e-5)
@@ -91,7 +91,7 @@ def test_bucketed_rank_matches_oracle(missing_prob):
     f = _mixed_depth_forest()
     data = synthetic.generate_data(70, f.num_cols, missing_prob=missing_prob,
                                    seed=17)
-    eng = DepthBucketedRankEngine(f, row_tile=32, tree_tile=8, interpret=True)
+    eng = DepthBucketedRankEngine(f)
     assert len(eng.sub) >= 2  # genuinely bucketed
     got = np.asarray(eng.predict(data))
     np.testing.assert_allclose(got, oracle.predict(f, data), atol=1e-5)
@@ -103,32 +103,39 @@ def test_bucketed_rank_with_stump_bucket():
     f = _mixed_depth_forest(seed=13)
     f.is_leaf[0, :] = True  # tree 0 is a stump -> constant-margin bucket
     data = synthetic.generate_data(40, f.num_cols, seed=14)
-    eng = DepthBucketedRankEngine(f, row_tile=32, tree_tile=8, interpret=True)
+    eng = DepthBucketedRankEngine(f)
     np.testing.assert_allclose(
         np.asarray(eng.predict(data)), oracle.predict(f, data), atol=1e-5
     )
 
 
 def test_make_depth_bucketed_engine_chooses_rank_vs_fold():
+    """Fold-kernel buckets where the kernel runs, rank buckets otherwise."""
     from tahoe_tpu.ops.bucketed import (
         DepthBucketedFoldEngine,
         DepthBucketedRankEngine,
         make_depth_bucketed_engine,
     )
 
-    few_cols = _mixed_depth_forest()  # 9 features -> rank form, 1 group
-    eng = make_depth_bucketed_engine(few_cols, row_tile=32, interpret=True)
-    assert isinstance(eng, DepthBucketedRankEngine)
+    f = _mixed_depth_forest()
+    eng = make_depth_bucketed_engine(f, use_kernel=True, row_tile=32)
+    assert isinstance(eng, DepthBucketedFoldEngine)
+    eng2 = make_depth_bucketed_engine(f, use_kernel=False)
+    assert isinstance(eng2, DepthBucketedRankEngine)
 
-    many_cols = _mixed_depth_forest(cols=125, seed=21)  # > 2 plane groups
-    eng2 = make_depth_bucketed_engine(many_cols, row_tile=32, interpret=True)
-    assert isinstance(eng2, DepthBucketedFoldEngine)
+    data = synthetic.generate_data(40, f.num_cols, seed=22)
+    for e in (eng, eng2):
+        np.testing.assert_allclose(
+            np.asarray(e.predict(data)), oracle.predict(f, data), atol=1e-5)
 
-    data = synthetic.generate_data(40, few_cols.num_cols, seed=22)
+
+def test_bucketed_fold_wide_forest():
+    """Buckets share one canonicalization of the live columns."""
+    f = _mixed_depth_forest(cols=125, seed=21)
+    data = synthetic.generate_data(40, f.num_cols, missing_prob=0.1, seed=23)
+    eng = DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16)
     np.testing.assert_allclose(
-        np.asarray(eng.predict(data)), oracle.predict(few_cols, data),
-        atol=1e-5,
-    )
+        np.asarray(eng.predict(data)), oracle.predict(f, data), atol=1e-5)
 
 
 def test_bucketed_with_early_leaf_stumps():
@@ -136,7 +143,7 @@ def test_bucketed_with_early_leaf_stumps():
     f = _mixed_depth_forest(seed=11)
     f.is_leaf[0, :] = True  # tree 0 is a stump
     data = synthetic.generate_data(25, f.num_cols, seed=12)
-    eng = DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16, interpret=True)
+    eng = DepthBucketedFoldEngine(f, row_tile=8, tree_tile=16)
     np.testing.assert_allclose(
         np.asarray(eng.predict(data)), oracle.predict(f, data), atol=1e-5
     )

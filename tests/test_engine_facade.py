@@ -85,57 +85,32 @@ def test_enumeration_subprocess(forest, data):
     assert r.ran and r.correct, (r.error, r.skipped_reason)
 
 
-def test_enumeration_tile_tuning(forest, data):
-    """--tune-tiles path: candidate tile shapes are measured and the result
-    records which (row_tile, tree_tile) won."""
-    results = autotune.enumerate_strategies(
-        forest.spec, data,
-        strategies=(Strategy.SPLIT_FOREST,),
-        subprocess_isolation=False, warmup=1, epochs=2, verbose=False,
-        tune_tiles=True,
-    )
-    r = results[Strategy.SPLIT_FOREST]
-    assert r.ran and r.correct, (r.error, r.skipped_reason)
-    cands = autotune.tile_candidates(Strategy.SPLIT_FOREST, forest.spec)
-    assert r.tiles in cands
+def test_kernel_feasibility_follows_the_platform(monkeypatch):
+    """The fold kernel is feasible on a GPU, or interpreted when asked;
+    never on another platform."""
+    spec = synthetic.generate_forest(20, 4, 10, seed=96)
+    monkeypatch.delenv("TAHOE_PALLAS_INTERPRET", raising=False)
+    for s in (Strategy.VMEM_FOREST, Strategy.SPLIT_FOREST):
+        assert feasibility.check(s, spec, platform="gpu") is None
+        assert "GPU" in feasibility.check(s, spec, platform="cpu")
+    for s in (Strategy.HBM_DIRECT, Strategy.RANK_MXU, Strategy.TENSOR):
+        assert feasibility.check(s, spec, platform="cpu") is None
+    monkeypatch.setenv("TAHOE_PALLAS_INTERPRET", "1")
+    assert feasibility.check(Strategy.SPLIT_FOREST, spec, "cpu") is None
 
 
-def test_rank_defaults_prefer_big_row_tiles():
-    """Under production limits the SUSY-class rank engine must come up at
-    (1024, 128) with subtree-split mode (auto ls4) — the measured-best r2
-    configuration (scripts/ls_sweep2-4.py): big row tiles amortize MXU
-    weight loads; the split form keeps fold chains vreg-resident."""
-    from tahoe_tpu.engine.feasibility import rank_default_tiles
-    from tahoe_tpu.forest import synthetic
-    from tahoe_tpu.ops.rank_kernel import RankFoldEngine
-
-    spec = synthetic.generate_forest(500, 8, 18, seed=1)
-    rt, tt = rank_default_tiles(spec)
-    assert (rt, tt) == (1024, 128)
-    eng = RankFoldEngine(spec, row_tile=rt, tree_tile=tt, interpret=True)
-    assert eng.split_level in (3, 4)
+def test_placements_of_the_fold_strategies(forest):
+    """VMEM_FOREST walks the whole forest per program (one tree chunk);
+    SPLIT_FOREST splits it into 128-tree chunks."""
+    big = Forest(synthetic.generate_forest(300, 3, 6, seed=97))
+    vm = big.engine(Strategy.VMEM_FOREST)
+    sp = big.engine(Strategy.SPLIT_FOREST)
+    assert vm.cfg.padded_trees == vm.cfg.chunk_trees >= 300
+    assert sp.cfg.chunk_trees == 128 and sp.cfg.padded_trees == 384
+    assert forest.engine(Strategy.SPLIT_FOREST) is forest.engine(
+        Strategy.SPLIT_FOREST)  # engines are cached per key
 
 
-def test_rank_defaults_per_depth_deep():
-    """Depth >= 13 uses the measured per-depth preference lists (r4_deep{,2,3}
-    sweeps, VERDICT r3 #2): deep13 -> (128, 8) whole-level ls0 (1.15
-    us/sample vs 2.17 at the old big-rt-first pick), deep14 -> (512, 4) ls8
-    (2.18-2.19 us/sample, unlocked by the Db-conditioned split budget —
-    scripts/derate_probe.py r4), deep15 -> (1024, 1) ls9 (2.13-2.22). The
-    auto split-level chooser must land on the measured split level for
-    each."""
-    from tahoe_tpu.engine.feasibility import rank_default_tiles
-    from tahoe_tpu.forest import synthetic
-    from tahoe_tpu.ops.rank_kernel import RankFoldEngine
-
-    cases = {
-        13: ((80, 13, 24), (128, 8), 0),
-        14: ((60, 14, 20), (512, 4), 8),
-        15: ((30, 15, 16), (1024, 1), 9),
-    }
-    for depth, ((T, D, C), want_tiles, want_ls) in cases.items():
-        spec = synthetic.generate_forest(T, D, C, seed=1)
-        rt, tt = rank_default_tiles(spec)
-        assert (rt, tt) == want_tiles, (depth, rt, tt)
-        eng = RankFoldEngine(spec, row_tile=rt, tree_tile=tt, interpret=True)
-        assert eng.split_level == want_ls, (depth, eng.split_level)
+def test_child_platform_keeps_the_caller_off_the_device():
+    """The CLI parent learns the platform from a child process."""
+    assert autotune.child_platform() == "cpu"

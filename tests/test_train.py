@@ -36,10 +36,10 @@ def test_trained_fold_parity(trained):
 
 
 def test_trained_rank_parity(trained):
-    from tahoe_tpu.ops.rank_kernel import RankFoldEngine
+    from tahoe_tpu.ops.rank_engine import RankEngine
 
     spec, data, want = trained
-    eng = RankFoldEngine(spec, row_tile=16, tree_tile=8, interpret=True)
+    eng = RankEngine(spec)
     np.testing.assert_allclose(np.asarray(eng.predict(data)), want, atol=1e-5)
 
 
